@@ -101,15 +101,19 @@ def run_amortized_rounds(read_matrix, bv_matrix, names, out_dir, end, eng):
     fill, memory budget) -- the caller falls back to the classic rounds."""
     if os.environ.get("COMMET_TPU_MULTI", "1") == "0":
         return False
+    if not eng.stream or eng.mesh is not None:
+        # no resident StreamIndexes without the single-device stream path:
+        # amortize the dense planes instead
+        return run_plane_cohorts(read_matrix, bv_matrix, names, out_dir,
+                                 end, eng)
     n = len(names)
-    budget = float(os.environ.get("COMMET_TPU_RESIDENT_BUDGET", "6e9"))
+    budget = eng.resident_budget()
     residents = []
     total_bytes = 0
     for i in range(end):
         rs = _load_set(names[i], read_matrix[i], bv_matrix[i])
         # pass the REMAINING cumulative budget so an index that would
         # overshoot is rejected before it allocates device memory
-        # (ADVICE r4: the old post-build check could OOM first)
         r = eng.build_resident(rs, budget=budget - total_bytes)
         if r is None:
             # high fill / wide residents the stream cannot serve: the
@@ -137,6 +141,28 @@ def run_amortized_rounds(read_matrix, bv_matrix, names, out_dir, end, eng):
     return True
 
 
+# device memory the plane-cohort schedule leaves free next to its resident
+# planes: the bulk build's workspace at k=33 (a 2^27-entry chunk's four
+# key columns and sort operands, ~4.3 GB, plus one 1 GiB scratch plane),
+# rounded up
+PLANES_WORKSPACE = 6 << 30
+
+
+def planes_budget() -> float:
+    """Device bytes for resident dense planes: COMMET_TPU_PLANES_BUDGET if
+    set, else the device's memory limit less PLANES_WORKSPACE. The CPU
+    backend reports no device memory limit -- its planes live in host
+    memory -- so nothing is capped there."""
+    env = os.environ.get("COMMET_TPU_PLANES_BUDGET")
+    if env:
+        return float(env)
+    import jax
+    if jax.devices()[0].platform == "cpu":
+        return float("inf")
+    from commet_tpu.parallel.sharded import device_hbm_bytes
+    return float(device_hbm_bytes() - PLANES_WORKSPACE)
+
+
 def run_plane_cohorts(read_matrix, bv_matrix, names, out_dir, end, eng):
     """The amortized all-vs-all schedule for the HIGH-FILL regime (the
     reference's own default: full max_kmer partitions at 11.6% fill,
@@ -152,15 +178,10 @@ def run_plane_cohorts(read_matrix, bv_matrix, names, out_dir, end, eng):
     if jax.devices()[0].platform == "cpu" and \
             os.environ.get("COMMET_TPU_PLANE_COHORTS", "") != "force":
         return False  # CPU (tests): dense multi-plane batches are slow
-    if end < 2:
-        return False  # nothing to amortize: classic path, no new compiles
+    if end < 2 or eng.mesh is not None:
+        return False  # nothing to amortize / mesh: classic path
     n = len(names)
-    from commet_tpu.parallel.sharded import device_hbm_bytes
-    # leave headroom for the bulk-build workspace (sort operands + scratch
-    # plane) and the probe batches next to the resident planes
-    budget = float(os.environ.get(
-        "COMMET_TPU_PLANES_BUDGET", str(device_hbm_bytes() - (6 << 30))))
-    max_s = int(os.environ.get("COMMET_TPU_PLANE_COHORT_MAX", "8"))
+    budget = planes_budget()
     from commet_tpu.core import kernels as _k
     if 2 * 4 * _k.plane_words(eng.k) * 4 > budget:
         return False  # cannot hold even a 2-index cohort
@@ -168,7 +189,7 @@ def run_plane_cohorts(read_matrix, bv_matrix, names, out_dir, end, eng):
     while i < end:
         cohort = []
         total = 0
-        while i < end and len(cohort) < max_s:
+        while i < end:
             rs = _load_set(names[i], read_matrix[i], bv_matrix[i])
             saved_chunk = os.environ.get("COMMET_TPU_BULK_CHUNK")
             if cohort and eng.k >= 32 and saved_chunk is None:
@@ -422,7 +443,7 @@ def main(argv=None) -> int:
     init_distributed()  # no-op unless COMMET_TPU_COORDINATOR/_DISTRIBUTED set
     parser = argparse.ArgumentParser(
         description="Computes the filtering and the full N x N intersections "
-                    "of read sets (TPU-native)")
+                    "of read sets on an accelerator")
     parser.add_argument("input_file", type=str)
     parser.add_argument("--sge", action="store_true",
                         help="compatibility alias for --jobs 2 (the "
@@ -443,10 +464,10 @@ def main(argv=None) -> int:
                         help="accepted for reference drop-in compatibility; "
                              "unused (no external binaries)")
     parser.add_argument("--devices", type=str, default=None,
-                        help="number of TPU chips to use (or 'all'); planes "
-                             "replicate and the read axis shards when they "
-                             "fit HBM, else planes shard (sets "
-                             "COMMET_TPU_DEVICES)")
+                        help="number of local devices to use (or 'all'); "
+                             "planes replicate and the read axis shards "
+                             "when they fit one device's memory, else "
+                             "planes shard (sets COMMET_TPU_DEVICES)")
     parser.add_argument("--batch", type=int, default=4096,
                         help="device batch size (reads per search step)")
     parser.add_argument("--jobs", type=int, default=1,
@@ -472,7 +493,7 @@ def main(argv=None) -> int:
 
     # multi-host (COMMET_TPU_COORDINATOR/_DISTRIBUTED): each process owns a
     # stride of the comparison rounds over the shared filesystem — the
-    # TPU-pod equivalent of the reference's SGE job partitioning
+    # cluster equivalent of the reference's SGE job partitioning
     # (Commet.py:204-236); analysis is deferred exactly like --sge mode.
     import jax
     nprocs, rank = jax.process_count(), jax.process_index()
@@ -494,8 +515,6 @@ def main(argv=None) -> int:
 
     if args.devices:
         os.environ["COMMET_TPU_DEVICES"] = args.devices
-    from commet_tpu.autowarm import ensure_prewarmed
-    ensure_prewarmed(ks=(k,))  # one-time per code version (VERDICT r4 #5)
     from commet_tpu.parallel.sharded import auto_mesh
     eng = Engine(k=k, t=t, batch=args.batch, mesh=auto_mesh())
     end = 1 if args.one_vs_all else len(read_matrix) - 1

@@ -78,8 +78,6 @@ def main(argv=None) -> int:
     qname, qentries = next(iter(parse_sets(search_file_list).items()))
     b = _load(qname, qentries)
 
-    from commet_tpu.autowarm import ensure_prewarmed
-    ensure_prewarmed(ks=(kmer_size,))  # one-time per code version
     from commet_tpu.parallel.sharded import auto_mesh
     eng = Engine(k=kmer_size, t=min_hits, mesh=auto_mesh())
     # pass 1: B in A (src/compare_reads.cpp:240-266)

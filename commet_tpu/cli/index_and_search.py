@@ -123,8 +123,6 @@ def main(argv=None) -> int:
         if full:
             break  # full mode only uses the first (map-ordered) set
 
-    from commet_tpu.autowarm import ensure_prewarmed
-    ensure_prewarmed(ks=(kmer_size,))  # one-time per code version
     from commet_tpu.parallel.sharded import auto_mesh
     eng = Engine(k=kmer_size, t=min_hits, mesh=auto_mesh())
     eng.index_and_search(index_set, query_sets, out_dir=out_path,

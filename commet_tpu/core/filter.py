@@ -82,10 +82,10 @@ def filter_batch_device(codes2, valid, lengths, length: int,
                         min_size: int = 0, max_n: int = 2**31 - 1,
                         min_shannon: float = 0.0, max_reads: int = -1):
     """Device-assisted filter for packed batches already on (or bound for)
-    the device: the O(N*L) per-base class counting runs as a TPU kernel
+    the device: the O(N*L) per-base class counting runs as a device kernel
     (kernels.class_counts_packed); the O(5)-per-read float32-exact Shannon
     decision finishes on the host (bit-exact vs the reference's glibc
-    logf arithmetic, which TPU transcendentals cannot reproduce). The
+    logf arithmetic, which device transcendentals need not reproduce). The
     file-level filter_reads CLI keeps the native-parser host path — the
     parse already produces class counts in one pass, so shipping bases to
     the device only to count them would be upload-bound; this entry point

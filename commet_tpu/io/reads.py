@@ -3,7 +3,7 @@
 Two parser backends with identical semantics:
   - native C++ (commet_tpu/native/libcommet_io.so, built on demand): parses,
     2-bit-encodes and per-read class-counts in one pass - the production
-    data plane feeding the TPU kernels;
+    data plane feeding the device kernels;
   - pure Python fallback (and the provider of full record text for
     extract_reads-style materialization).
 
@@ -34,12 +34,11 @@ import numpy as np
 
 from commet_tpu.io.bv import BitVector
 
-try:  # optional fast C++ parser (commet_tpu/native)
-    from commet_tpu.native import parser as _native
-    _HAVE_NATIVE = _native.available()
-except Exception:  # pragma: no cover - native lib not buildable
-    _native = None
-    _HAVE_NATIVE = False
+from commet_tpu.native import parser as _native
+
+# the fast C++ parser (commet_tpu/native), built on first use; False when
+# it cannot be built here (no compiler or zlib)
+_HAVE_NATIVE = _native.available()
 
 # byte -> 2-bit code LUT; 4 marks an invalid (non-ACGT) byte
 CODE_LUT = np.full(256, 4, dtype=np.uint8)

@@ -22,7 +22,7 @@ def _make():
     try:
         subprocess.run(["make", "-C", _DIR, "clean", "all"], check=True,
                        capture_output=True)
-    except Exception as exc:  # pragma: no cover
+    except (OSError, subprocess.CalledProcessError) as exc:
         raise OSError(f"cannot build native io library: {exc}")
 
 
@@ -33,7 +33,7 @@ def _load():
     if not os.path.exists(_SO):
         _make()
     lib = ctypes.CDLL(_SO)
-    if not hasattr(lib, "cio_gather_packed"):
+    if not hasattr(lib, "cio_build_planes_mt"):
         # stale build from an older checkout: rebuild once
         del lib
         os.remove(_SO)
@@ -66,10 +66,11 @@ def _load():
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
         ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint32),
         ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int32)]
-    lib.cio_build_planes.argtypes = [
+    lib.cio_build_planes_mt.argtypes = [
         ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8)]
+        ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int]
     lib.cio_count_kmers.argtypes = [
         ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
@@ -117,22 +118,35 @@ def parse_file(path: str):
         lib.cio_free(h)
 
 
+# reads below which the threaded plane build is not worth its thread
+# start-up (each thread scans every read)
+_BUILD_THREAD_MIN_READS = 100_000
+
+
 def build_planes_into(planes: np.ndarray, codes: np.ndarray,
                       offsets: np.ndarray, lengths: np.ndarray,
                       idx: np.ndarray, k: int) -> None:
     """OR every complete forward window of reads ``idx`` into ``planes``
-    (uint32 [4 * 2^(k-5)] viewed as bytes). Requires k >= 5."""
-    assert k >= 5
+    (uint32 [4 * 2^(k-5)] viewed as bytes), on one thread per host core
+    for large read sets. Requires k >= 5."""
+    if k < 5:
+        raise ValueError(f"native plane build needs k >= 5, got {k}")
+    if planes.dtype != np.uint32 or planes.size != 4 * (1 << (k - 5)) \
+            or not planes.flags.c_contiguous:
+        raise ValueError("planes must be a contiguous uint32 "
+                         f"[4 * 2^{k - 5}] array")
     lib = _load()
     idx = np.ascontiguousarray(idx, dtype=np.int64)
+    nthreads = (os.cpu_count() or 1) \
+        if len(idx) >= _BUILD_THREAD_MIN_READS else 1
     pview = planes.view(np.uint8)
-    lib.cio_build_planes(
+    lib.cio_build_planes_mt(
         codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         len(idx), k,
-        pview.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        pview.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), nthreads)
 
 
 def count_kmers(codes: np.ndarray, offsets: np.ndarray, lengths: np.ndarray,

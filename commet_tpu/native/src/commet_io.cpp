@@ -1,7 +1,7 @@
 // commet_tpu native IO: fast fasta/fastq(.gz) parsing into 2-bit-packed
 // read batches, plus per-read filter statistics.
 //
-// This is the host-side data plane feeding the TPU kernels: parsing and
+// This is the host-side data plane feeding the device kernels: parsing and
 // encoding are IO/byte-bound and belong in native code (the reference keeps
 // them in C++ too: include/fasta_file.h, include/fastq_file.h). Semantics
 // match the reference readers: fasta reads counted by '>' lines, sequence =
@@ -19,6 +19,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <string>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -244,13 +245,15 @@ int cio_gather_packed(const uint8_t* codes, const int64_t* offsets,
 // a dense 2^k-bit bitmap at byte offset p * 2^(k-3); key value v -> byte
 // v>>3, bit v&7 (little-endian uint32 word view equivalence).
 //
-// Random single-bit writes into a multi-GiB table are descriptor-rate-bound
-// on the TPU (~65M lookups/s measured on v5e) but cache-miss-bound on the
-// host CPU; building here and uploading once per partition is the faster
-// and simpler data path.
-void cio_build_planes(const uint8_t* codes, const int64_t* offsets,
-                      const int32_t* lengths, const int64_t* idx,
-                      int64_t n_idx, int k, uint8_t* planes) {
+// Random single-bit writes into a multi-GiB table are cache-miss-bound, so
+// the build runs on ``nthreads`` threads. Each thread scans every read but
+// writes only the keys whose byte falls in its own slice of the plane's
+// bytes: the slices are disjoint, so no write needs a lock or an atomic,
+// and the planes come out identical to a single-threaded build.
+static void build_planes_slice(const uint8_t* codes, const int64_t* offsets,
+                               const int32_t* lengths, const int64_t* idx,
+                               int64_t n_idx, int k, uint8_t* planes,
+                               uint64_t lo, uint64_t hi) {
   const uint64_t mask = (k < 64) ? ((1ULL << k) - 1) : ~0ULL;
   const size_t plane_bytes = ((size_t)1) << (k - 3);
   uint8_t* pa = planes;
@@ -273,15 +276,34 @@ void cio_build_planes(const uint8_t* codes, const int64_t* offsets,
       ka = ((ka << 1) | (c >> 1)) & mask;
       kb = ((kb << 1) | (c & 1)) & mask;
       if (++run >= k) {
-        uint64_t kc = ka ^ kb;
-        uint64_t kd = ka | kb;
-        pa[ka >> 3] |= (uint8_t)(1u << (ka & 7));
-        pb[kb >> 3] |= (uint8_t)(1u << (kb & 7));
-        pc[kc >> 3] |= (uint8_t)(1u << (kc & 7));
-        pd[kd >> 3] |= (uint8_t)(1u << (kd & 7));
+        const uint64_t keys[4] = {ka, kb, ka ^ kb, ka | kb};
+        uint8_t* const base[4] = {pa, pb, pc, pd};
+        for (int p = 0; p < 4; p++) {
+          const uint64_t byte = keys[p] >> 3;
+          if (byte >= lo && byte < hi)
+            base[p][byte] |= (uint8_t)(1u << (keys[p] & 7));
+        }
       }
     }
   }
+}
+
+void cio_build_planes_mt(const uint8_t* codes, const int64_t* offsets,
+                         const int32_t* lengths, const int64_t* idx,
+                         int64_t n_idx, int k, uint8_t* planes,
+                         int nthreads) {
+  const uint64_t plane_bytes = ((uint64_t)1) << (k - 3);
+  if (nthreads < 1) nthreads = 1;
+  if ((uint64_t)nthreads > plane_bytes) nthreads = (int)plane_bytes;
+  std::vector<std::thread> workers;
+  for (int t = 1; t < nthreads; t++) {
+    workers.emplace_back(build_planes_slice, codes, offsets, lengths, idx,
+                         n_idx, k, planes, plane_bytes * t / nthreads,
+                         plane_bytes * (t + 1) / nthreads);
+  }
+  build_planes_slice(codes, offsets, lengths, idx, n_idx, k, planes, 0,
+                     plane_bytes / nthreads);
+  for (auto& w : workers) w.join();
 }
 
 // Count complete windows per read (partition cursor arithmetic,

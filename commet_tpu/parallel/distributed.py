@@ -1,12 +1,12 @@
-"""Multi-host (pod-slice) execution: the TPU-native replacement for the
-reference's cluster story (SGE qsub + shared filesystem,
-Commet.py:119,204-236,580-582).
+"""Multi-host execution: the replacement for the reference's cluster
+story (SGE qsub + shared filesystem, Commet.py:119,204-236,580-582).
 
 Single-controller-per-host JAX: every host runs the same CLI command;
 `jax.distributed.initialize` wires them into one global runtime whose
-`jax.devices()` spans the slice, so the same Mesh/GSPMD code paths used for
-single-host multi-chip runs (sharded.py) extend across hosts with
-collectives riding ICI/DCN instead of files on an NFS mount.
+`jax.devices()` spans every host's GPUs, so the same Mesh/GSPMD code paths
+used for single-host multi-device runs (sharded.py) extend across hosts,
+with collectives over NVLink within a host and the network between hosts
+instead of files on an NFS mount.
 
 Activation is environment-driven so the CLI surface stays reference-shaped:
 
@@ -14,16 +14,17 @@ Activation is environment-driven so the CLI surface stays reference-shaped:
     COMMET_TPU_NUM_PROCESSES=4          # world size
     COMMET_TPU_PROCESS_ID=0..3          # this host's rank
 
-On TPU pods the three variables are optional (jax.distributed can
-auto-detect from the TPU metadata); setting COMMET_TPU_DISTRIBUTED=1 alone
-requests auto-detected initialization.
+All three are required: nothing in a GPU cluster tells JAX its layout.
+COMMET_TPU_DISTRIBUTED=1 alone calls `jax.distributed.initialize()` with
+no arguments, for clusters whose environment JAX can read itself (e.g. a
+SLURM allocation).
 
 Work placement mirrors the reference's SGE partitioning: the commet driver
 strides its comparison rounds across processes (rank r runs rounds
 r, r+P, ...) over the shared filesystem, and — exactly like the
 reference's --sge mode — defers matrix aggregation to a post-hoc
 commet_analysis run once every rank has finished. Within each process,
-COMMET_TPU_DEVICES selects a mesh over that host's local chips
+COMMET_TPU_DEVICES selects a mesh over that host's local devices
 (sharded.auto_mesh), so device shardings never reference non-addressable
 devices.
 """

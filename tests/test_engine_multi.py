@@ -13,7 +13,7 @@ import commet_tpu.engine.engine as engine_mod
 from commet_tpu.engine.engine import Engine
 from commet_tpu.io.reads import ReadSet
 
-from test_engine_stream import fresh_selfcheck, write_fasta
+from test_engine_stream import write_fasta
 
 K = 15
 T = 2
@@ -40,7 +40,6 @@ def test_multi_matches_pairwise(tmp_path, monkeypatch, max_kmer):
     multi-partition case (small max_kmer forces several partitions and
     exercises per-partition OR + the searched-in-last-partition counter)."""
     rng = np.random.default_rng(91)
-    fresh_selfcheck(monkeypatch)
     monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     idx_sets, qry_fa = _mk(tmp_path, rng)
 
@@ -85,7 +84,6 @@ def test_multi_matches_pairwise(tmp_path, monkeypatch, max_kmer):
 def test_multi_grouping_spans_many_slots(tmp_path, monkeypatch):
     """max_slots grouping: forcing one-slot groups must not change tags."""
     rng = np.random.default_rng(17)
-    fresh_selfcheck(monkeypatch)
     monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     idx_sets, qry_fa = _mk(tmp_path, rng, n_idx_sets=4, n_idx=40, n_qry=80)
     eng = Engine(k=K, t=T, batch=64)
@@ -110,7 +108,6 @@ def test_driver_amortized_matches_classic(tmp_path, monkeypatch):
     from commet_tpu.cli import commet as commet_cli
 
     rng = np.random.default_rng(2024)
-    fresh_selfcheck(monkeypatch)
     monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     donors = None
     fofs = []
@@ -143,7 +140,6 @@ def test_build_resident_refuses_unservable(tmp_path, monkeypatch):
     """Wide keys / stream-off / budget-exceeded configurations return None
     (callers fall back to the pairwise path)."""
     rng = np.random.default_rng(3)
-    fresh_selfcheck(monkeypatch)
     monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     idx_sets, _ = _mk(tmp_path, rng, n_idx_sets=1)
     eng35 = Engine(k=35, t=T, batch=64)  # beyond the 34-bit stream domain
@@ -159,18 +155,16 @@ def test_build_resident_refuses_unservable(tmp_path, monkeypatch):
     monkeypatch.delenv("COMMET_TPU_RESIDENT_BUDGET")
 
     monkeypatch.setenv("COMMET_TPU_STREAM", "0")
-    fresh_selfcheck(monkeypatch)
     eng_off = Engine(k=K, t=T, batch=64)
     assert eng_off.build_resident(idx_sets[0]) is None
 
 
 def test_multi_long_reads_fall_back(tmp_path, monkeypatch):
-    """A query read too long for the packed unsort geometry (> 2^30 window
+    """A query read too long for the stream batch geometry (> 2^30 window
     keys at the minimum 2048-read batch) makes search_multi_set return
     None instead of raising, so the driver can fall back to the classic
-    pairwise schedule (VERDICT r4 #7 / ADVICE r4)."""
+    pairwise schedule."""
     rng = np.random.default_rng(7)
-    fresh_selfcheck(monkeypatch)
     monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     idx_sets, _ = _mk(tmp_path, rng, n_idx_sets=1)
     eng = Engine(k=K, t=T, batch=64)
@@ -199,7 +193,6 @@ def test_planes_multi_matches_pairwise(tmp_path, monkeypatch, max_kmer):
     engine's tags/counters/bv bytes, including multi-partition indexes."""
     rng = np.random.default_rng(55)
     monkeypatch.setenv("COMMET_TPU_STREAM", "0")  # the high-fill regime
-    fresh_selfcheck(monkeypatch)
     idx_sets, qry_fa = _mk(tmp_path, rng)
 
     eng = Engine(k=K, t=T, batch=64, max_kmer=max_kmer)
@@ -240,7 +233,6 @@ def test_planes_multi_budget_and_k33(tmp_path, monkeypatch):
     k=33 wide keys are servable (4-plane addressing covers k <= 36)."""
     rng = np.random.default_rng(6)
     monkeypatch.setenv("COMMET_TPU_STREAM", "0")
-    fresh_selfcheck(monkeypatch)
     idx_sets, qry_fa = _mk(tmp_path, rng, n_idx_sets=2, n_idx=30, n_qry=40,
                            length=110)
     eng = Engine(k=K, t=T, batch=64)
@@ -268,7 +260,6 @@ def test_driver_plane_cohorts_matches_classic(tmp_path, monkeypatch):
 
     rng = np.random.default_rng(707)
     monkeypatch.setenv("COMMET_TPU_STREAM", "0")
-    fresh_selfcheck(monkeypatch)
     donors = None
     fofs = []
     for s in range(3):
@@ -303,7 +294,6 @@ def test_multi_wide_matches_pairwise(tmp_path, monkeypatch):
     through the host-side exact uint64 sets (no per-index bit planes).
     Tags/counters/bvs must equal the pairwise path byte for byte."""
     rng = np.random.default_rng(3131)
-    fresh_selfcheck(monkeypatch)
     monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     k33 = 33
     idx_sets = []

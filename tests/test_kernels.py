@@ -197,7 +197,7 @@ def test_greedy_fast_matches_scan(t):
 @pytest.mark.parametrize("k", [15, 32, 33])
 def test_bulk_build_matches_build_chunk(k):
     """The bulk sorted-scatter build (bulk_plane_sorted + bulk_scatter_set
-    + bulk_or_plane, the high-fill TPU build path) must produce planes
+    + bulk_or_plane, the high-fill device build path) must produce planes
     bit-identical to build_chunk, including multi-chunk flushes through
     the scratch-plane OR and invalid-base window resets."""
     from commet_tpu.core import stream as _stream

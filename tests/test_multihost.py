@@ -1,6 +1,6 @@
 """Multi-host execution in simulation: two local processes joined through
 jax.distributed (CPU backend) run the strided commet rounds over a shared
-output directory, then commet_analysis aggregates — the TPU-pod equivalent
+output directory, then commet_analysis aggregates — the multi-host equivalent
 of the reference's SGE partitioning (Commet.py:204-236,580-586).
 
 The fast test byte-compares the 2-process CSVs against a 1-process run of

@@ -1,6 +1,6 @@
 """--jobs resume semantics: completed pairs are skipped on re-run (marker +
 outputs done_check wired from cli/commet.py into the JobGraph), and deleting
-one pair's markers recomputes only that pair (VERDICT r2 item 8)."""
+one pair's markers recomputes only that pair."""
 
 import os
 import time

@@ -69,7 +69,7 @@ def test_unknown_dep_rejected():
 
 
 def test_hundred_set_all_vs_all_fanout():
-    """BASELINE config-5 shape smoke (VERDICT r4 #3b): the N=100 all-vs-all
+    """BASELINE config-5 shape smoke: the N=100 all-vs-all
     DAG — 99 step-0 jobs + 4,950 pair chains (9,900 refinement jobs) —
     must schedule, respect the per-round ordering invariants, and finish.
     Job bodies are mocked (the engine's correctness at fan-out is covered

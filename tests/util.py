@@ -11,9 +11,8 @@ def ensure_refbuild():
     (idempotent; same recipe as bench.py) and return the index_and_search
     path. Returns None only when /root/reference itself is absent — the
     live-golden tests then genuinely cannot run (and conftest already skips
-    them in that environment). This removes the silent skips VERDICT r4 #6
-    flagged: on any machine with the reference checkout, the comparison
-    always runs."""
+    them in that environment). On any machine with the reference
+    checkout, the comparison always runs."""
     ref_bin = "/tmp/refbuild/bin/index_and_search"
     if os.path.exists(ref_bin):
         return ref_bin
